@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX ``TransformerLM.init`` tree → the port's params.
+"""Weight bridge: the JAX ``TransformerLM.init`` tree → the port's params,
+and a JAX paged pool cache → the port's pool (:func:`pool_from_numpy`).
 
 The JAX package keys its parameter tree by path (``checkpoint/npz.py``
 ``_flatten``: ``layers/3/attn/wq``). The port keeps those paths and the
@@ -75,6 +76,8 @@ def _to_tensor(a: Any, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes: exact through float32
         return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+    if a.dtype.name == "float8_e4m3fn":  # ml_dtypes: the same bits
+        return torch.from_numpy(a.view(np.uint8).copy()).view(torch.float8_e4m3fn).to(device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
@@ -106,3 +109,39 @@ def params_from_numpy(tree: Any, config: ModelConfig, device) -> dict:
         "final_norm": {"scale": t("final_norm/scale")},
         "head": {} if config.tie_embeddings else {"w": t("head/w")},
     }
+
+
+_POOL_DTYPES = {
+    "float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8,
+    "float8_e4m3fn": torch.float8_e4m3fn,
+}
+
+
+def pool_from_numpy(layers: Any, config: ModelConfig, device) -> list[dict]:
+    """The port's paged pool cache (:func:`repro_torch.models.transformer.
+    init_paged_cache`) from a JAX loop-form paged cache whose leaves are
+    numpy arrays: one dict per layer with ``pk``/``pv`` (num_pages,
+    page_size, nkv, dh), optional ``sk``/``sv`` (num_pages, nkv) f32 and
+    ``am`` (slots, capacity) f32. Codes and scales carry over bit for bit.
+    Unknown leaves, wrong shapes or dtypes raise ``ValueError``."""
+    check_supported(config)
+    if len(layers) != config.n_layers:
+        raise ValueError(f"pool bridge: {len(layers)} layers, expected {config.n_layers}")
+    nkv, dh = config.n_kv_heads, config.head_dim
+    out = []
+    for i, layer in enumerate(layers):
+        keys = set(layer)
+        if not ({"pk", "pv"} <= keys <= {"pk", "pv", "sk", "sv", "am"}) or ("sk" in keys) != ("sv" in keys):
+            raise ValueError(f"pool bridge: layer {i} has leaves {sorted(keys)}")
+        pk = np.asarray(layer["pk"])
+        if pk.ndim != 4 or pk.shape[2:] != (nkv, dh) or np.shape(layer["pv"]) != pk.shape:
+            raise ValueError(f"pool bridge: layer {i} pool shape {pk.shape}")
+        if pk.dtype.name not in _POOL_DTYPES:
+            raise ValueError(f"pool bridge: layer {i} pool dtype {pk.dtype}")
+        if "sk" in keys:
+            for name in ("sk", "sv"):
+                sc = np.asarray(layer[name])
+                if sc.shape != (pk.shape[0], nkv) or sc.dtype != np.float32:
+                    raise ValueError(f"pool bridge: layer {i} {name} is {sc.dtype}{sc.shape}")
+        out.append({k: _to_tensor(layer[k], device) for k in sorted(keys)})
+    return out

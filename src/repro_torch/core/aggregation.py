@@ -6,12 +6,15 @@ rows; in the single-device semantics the exchange is a visibility mask:
 query ``i`` may attend key ``j`` iff they share a participant or ``j`` was
 contributed this round.
 
-Selection strategies: ``strided``, ``recency``, ``sink_recency`` and
-``keynorm`` reproduce the JAX masks exactly. ``random`` draws i.i.d.
-Bernoulli(ratio) bits from a ``torch.Generator`` — JAX's threefry bits have
-no torch counterpart, so only the keep ratio and seed-determinism carry
-over. ``attnmass`` ranks by the fused paged decode's attention mass and
-arrives with that kernel in a later slice.
+Selection strategies: ``strided``, ``recency``, ``sink_recency``,
+``keynorm`` and ``attnmass`` reproduce the JAX masks exactly. ``random``
+draws i.i.d. Bernoulli(ratio) bits from a ``torch.Generator`` — JAX's
+threefry bits have no torch counterpart, so only the keep ratio and
+seed-determinism carry over. ``attnmass`` keeps the rows with the most
+accumulated decode-step softmax mass (the paged decode's ``return_mass``
+by-product); with no stats yet (prefill admission) it falls back to
+recency, and the pooled decode derives its per-step masks from the live
+accumulator through :func:`decode_exchange_mask`.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ def contribution_mask(
     generator: Optional[torch.Generator] = None,
     round_index: int = 0,
     keys: Optional[torch.Tensor] = None,
+    attn_mass: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(L,) bool — which global token positions are contributed (eq. 38).
 
@@ -42,6 +46,8 @@ def contribution_mask(
         independently.
       round_index: communication round t (decorrelates 'strided' rounds).
       keys: (L, n_kv, d_head) or (L, d) Key rows for 'keynorm'.
+      attn_mass: accumulated per-position attention mass for 'attnmass'
+        (None before any decode step: recency).
     """
     seg = partition.segment_ids
     L = partition.seq_len
@@ -53,11 +59,6 @@ def contribution_mask(
             raise ValueError("selection='random' requires a generator")
         u = torch.rand((L,), generator=generator, device=generator.device)
         return (u < ratio).to(seg.device)
-    if selection == "attnmass":
-        raise NotImplementedError(
-            "kv_selection='attnmass' needs the fused paged decode kernel, "
-            "which the port does not have yet"
-        )
 
     local_pos = _local_positions(seg, partition.n_participants)
     my_size = partition.sizes().to(torch.int32)[seg.long()]  # (L,)
@@ -87,7 +88,27 @@ def contribution_mask(
         larger = (norms[None, :] > norms[:, None]) & same
         rank = larger.sum(dim=1)
         return rank < keep_n
+    if selection == "attnmass":
+        if attn_mass is None:
+            return local_pos >= (my_size - keep_n)
+        mass = attn_mass.to(torch.float32).reshape(-1)[:L]
+        same = seg[:, None] == seg[None, :]
+        larger = (mass[None, :] > mass[:, None]) & same
+        return larger.sum(dim=1) < keep_n
     raise ValueError(f"unknown kv_selection {selection!r}")
+
+
+def decode_exchange_mask(attn_mass: torch.Tensor, exchange_ratio: float) -> torch.Tensor:
+    """Per-slot sparse-exchange mask from accumulated decode attention mass
+    (B, C): keep the ``max(1, round(ratio * C))`` columns each slot's
+    queries used most, as a (B, C) bool ``contributed`` mask. Ties keep the
+    lower column first (the JAX package's ``lax.top_k`` order), so columns
+    that never received mass (holes, padding) rank last and drop first."""
+    B, C = attn_mass.shape
+    n_keep = max(1, int(round(exchange_ratio * C)))
+    order = torch.sort(attn_mass.to(torch.float32), dim=1, descending=True, stable=True).indices
+    keep = torch.zeros((B, C), dtype=torch.bool, device=attn_mass.device)
+    return keep.scatter_(1, order[:, :n_keep], True)
 
 
 def _local_positions(segment_ids: torch.Tensor, n_participants: int) -> torch.Tensor:

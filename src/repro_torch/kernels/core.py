@@ -143,13 +143,17 @@ def masked_attention(
     soft_cap: Optional[float] = None,
     sm_scale: Optional[float] = None,
     return_stats: bool = False,
+    return_probs: bool = False,
 ):
     """The ONE masked-softmax attention body (GQA-aware, f32 accumulation).
 
     With ``return_stats`` it returns the partial-softmax statistics
     ``(m, l, acc)`` — ``m`` (B, nq, Lq) row max, ``l`` row mass, ``acc``
     (B, Lq, nq, dh) unnormalized value sum — the combinable flash-decoding
-    form. Fully-masked rows yield zero output (``l`` guarded), never NaN.
+    form. ``return_probs`` (stats form only) appends ``p`` (B, nq, Lq, Lk),
+    the masked softmax numerators relative to ``m`` — the per-column
+    attention-mass ingredient of the ``'attnmass'`` selection.
+    Fully-masked rows yield zero output (``l`` guarded), never NaN.
     """
     B, Lq, nq, dh = q.shape
     g = nq // k.shape[2]
@@ -170,6 +174,6 @@ def masked_attention(
     l = p.sum(dim=-1)
     acc = torch.einsum("bhqk,bkhd->bqhd", p, vf)
     if return_stats:
-        return m, l, acc
+        return (m, l, acc, p) if return_probs else (m, l, acc)
     out = acc / torch.clamp(l, min=1e-20).transpose(1, 2)[..., None]
     return out.to(q.dtype)

@@ -1,0 +1,236 @@
+"""Block-paged KV bookkeeping: the page-arithmetic module of the port.
+
+The port's own copy of the JAX package's ``serving/paging.py`` (pure
+Python; the port imports nothing of that package). The continuous-batching
+pool (:mod:`repro_torch.serving.scheduler`) stores KV in a fixed physical
+pool of ``(num_pages, page_size)`` blocks per attention layer and gives
+every slot an int32 *page table* row mapping page-slot ``j`` to a physical
+page — linear cache position ``t`` lives at physical location
+``(table[t // page_size], t % page_size)``.
+
+Sentinel convention (mirrors the :mod:`repro_torch.kernels.core` sentinel
+scheme): a page-table entry **outside ``[0, num_pages)``** is a hole —
+writes through it drop and reads through it contribute nothing (the paged
+attention paths overwrite such columns' ``kv_pos`` with ``PAD_POS`` before
+any visibility decision; gathers clamp the index). The canonical sentinel
+value is ``num_pages`` itself. Every consumer composes :func:`page_split` /
+:func:`pages_for` / :func:`linear_pos`, so the page geometry has one point
+of change; the helpers accept python ints and integer tensors alike.
+
+On top of the :class:`PageAllocator` (refcounted free list), the
+:class:`PrefixCache` keys page runs by the exact bytes of the request
+prefix that determine its KV — tokens AND partition segments AND sparse-
+exchange contribution columns (deep-layer KV depends on all three) — so
+admissions sharing a cached prefix map those pages copy-free into their
+table and prefill only the suffix. A partially-filled terminal page is
+shared copy-on-write.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Callable, Optional
+
+
+def pages_for(n, page_size: int):
+    """Number of pages covering ``n`` linear positions (ceil division)."""
+    return -(-n // page_size)
+
+
+def page_split(pos, page_size: int):
+    """Linear position → ``(page_slot, offset)``. Works on ints and integer
+    tensors; no power-of-two assumption on ``page_size``."""
+    return pos // page_size, pos % page_size
+
+
+def linear_pos(page_slot, offset, page_size: int):
+    """Inverse of :func:`page_split`."""
+    return page_slot * page_size + offset
+
+
+def padded_capacity(capacity: int, page_size: int) -> int:
+    """Smallest page-aligned capacity >= ``capacity`` — the pool's device
+    arrays and executables are sized on this, while user-facing validation
+    keeps the requested value."""
+    return pages_for(capacity, page_size) * page_size
+
+
+def pages_for_request(L: int, n_new: int, page_size: int, *, spec_k: int = 0):
+    """Pages backing one admitted request: the prompt+generation span plus
+    speculative write headroom.
+
+    Non-speculative decode writes KV at positions ``L .. L+n_new-2`` (the
+    final token's KV is never read), so ``pages_for(L + n_new)`` covers it.
+    With ``spec_k > 0`` the verify step writes ``spec_k + 1`` rows per tick
+    starting at the slot's frontier; the worst-case last tick starts at
+    ``L + n_new - 2``, reaching position ``L + n_new - 1 + (spec_k - 1)``
+    — allocate through it so every speculative write (accepted OR later
+    overwritten) lands in an owned page and the verify math stays bitwise
+    identical to sequential decode at every query position. The surplus
+    pages travel with the slot and are reclaimed with the rest at retire.
+    """
+    span = L + n_new
+    if spec_k > 0:
+        span += spec_k - 1
+    return pages_for(span, page_size)
+
+
+class PageAllocator:
+    """Refcounted free-list allocator over ``num_pages`` physical pages.
+
+    Pure host-side bookkeeping (the device never sees refcounts — only the
+    int32 tables the scheduler assembles from the returned ids). Frees are
+    decrefs; a page returns to the free list when its count reaches zero.
+    Double-frees raise — a page id freed twice by one holder is a table
+    corruption bug, never a recoverable condition.
+    """
+
+    def __init__(self, num_pages: int):
+        if num_pages < 1:
+            raise ValueError("num_pages >= 1")
+        self.num_pages = num_pages
+        self._ref = [0] * num_pages
+        # pop() hands out ascending ids — deterministic tables for tests
+        self._free = list(range(num_pages - 1, -1, -1))
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return self.num_pages - len(self._free)
+
+    def refcount(self, page: int) -> int:
+        return self._ref[page]
+
+    def alloc(self, n: int) -> Optional[list[int]]:
+        """``n`` fresh pages (refcount 1 each), or None if the pool cannot
+        satisfy the request — all-or-nothing, so a failed admission never
+        leaks partial allocations."""
+        if n < 0:
+            raise ValueError("alloc(n >= 0)")
+        if n > len(self._free):
+            return None
+        out = [self._free.pop() for _ in range(n)]
+        for p in out:
+            self._ref[p] = 1
+        return out
+
+    def incref(self, page: int) -> None:
+        if self._ref[page] <= 0:
+            raise ValueError(f"incref of free page {page}")
+        self._ref[page] += 1
+
+    def free(self, page: int) -> None:
+        """Drop one reference; releases the page at refcount zero."""
+        if self._ref[page] <= 0:
+            raise ValueError(f"double free of page {page}")
+        self._ref[page] -= 1
+        if self._ref[page] == 0:
+            self._free.append(page)
+
+    def fork(self, page: int) -> tuple[Optional[int], bool]:
+        """Copy-on-write claim of a (possibly shared) page.
+
+        Returns ``(page_id, needs_copy)``: with a single holder the caller
+        co-owns the original (incref, ``needs_copy=False`` — its bytes may
+        be rewritten in place with identical content); with multiple
+        holders a fresh page is allocated for the caller to copy into.
+        ``(None, True)`` means the pool is exhausted."""
+        if self._ref[page] == 1:
+            self._ref[page] += 1
+            return page, False
+        fresh = self.alloc(1)
+        if fresh is None:
+            return None, True
+        return fresh[0], True
+
+
+class _Entry:
+    __slots__ = ("length", "pages")
+
+    def __init__(self, length: int, pages: tuple):
+        self.length = length
+        self.pages = pages
+
+
+class PrefixCache:
+    """Refcounted prefix → page-run cache with LRU eviction.
+
+    Keys are produced by the caller's ``key_of(d)`` callback — the exact
+    bytes of everything that determines the first ``d`` positions' KV
+    (tokens, partition segments, contributed-exchange columns). The cache
+    stores one entry per prefix length probed: every page boundary of an
+    admitted prompt plus its terminal length, so a later prompt reuses the
+    longest cached prefix even when it diverges mid-prompt.
+
+    The cache holds its own page references (``allocator.incref``);
+    eviction and :meth:`release_all` drop them. Entries are safe to share
+    with live slots: full pages are immutable while referenced, and the
+    partial terminal page is claimed through :meth:`PageAllocator.fork`.
+    """
+
+    def __init__(self, allocator: PageAllocator, page_size: int):
+        self._alloc = allocator
+        self.page_size = page_size
+        self._entries: OrderedDict[bytes, _Entry] = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.tokens_reused = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def _candidates(self, L: int) -> list[int]:
+        """Prefix lengths worth probing for an ``L``-token prompt, longest
+        first, capped at ``L - 1`` — the last prompt token always prefills
+        so the admission still produces first-token logits."""
+        ps = self.page_size
+        cand = {d for d in range(ps, L, ps)}
+        cand.update(e.length for e in self._entries.values() if e.length < L)
+        return sorted(cand, reverse=True)
+
+    def lookup(self, key_of: Callable[[int], bytes], L: int):
+        """Longest cached prefix of an ``L``-token prompt: ``(d, pages)``
+        (``pages`` covers ``pages_for(d)`` page slots) or None."""
+        for d in self._candidates(L):
+            key = key_of(d)
+            e = self._entries.get(key)
+            if e is not None and e.length == d:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                self.tokens_reused += d
+                return d, e.pages
+        self.misses += 1
+        return None
+
+    def insert(self, key_of: Callable[[int], bytes], L: int, pages) -> None:
+        """Publish an admitted prompt's pages: one entry per page boundary
+        plus the terminal length. Existing keys are refreshed, not
+        duplicated; each new entry increfs the pages it spans."""
+        lengths = list(range(self.page_size, L, self.page_size)) + [L]
+        for d in lengths:
+            key = key_of(d)
+            if key in self._entries:
+                self._entries.move_to_end(key)
+                continue
+            run = tuple(pages[: pages_for(d, self.page_size)])
+            for p in run:
+                self._alloc.incref(p)
+            self._entries[key] = _Entry(d, run)
+
+    def evict_lru(self) -> bool:
+        """Drop the least-recently-used entry (decref its pages). Returns
+        False when the cache is already empty."""
+        if not self._entries:
+            return False
+        _, e = self._entries.popitem(last=False)
+        for p in e.pages:
+            self._alloc.free(p)
+        self.evictions += 1
+        return True
+
+    def release_all(self) -> None:
+        while self.evict_lru():
+            pass
